@@ -1,13 +1,13 @@
-// Native 3-D QuickHull: convex-hull preprocessing for gjkepa_tpu.
+// Native 3-D QuickHull: convex-hull preprocessing for gjkepa.
 //
 // Role: the reference imports a convex-hull builder (GCLIB_QuickHull) and a
 // face-soup deduplicator (GCLIB_DeHull) from its private library
 // (/root/reference/src/GCLIB_GJKEPA.f90:13-15); neither ships with the repo
-// (SURVEY.md §2.3).  In the TPU engine the *query* hot path never rebuilds
+// (SURVEY.md §2.3).  In this engine the *query* hot path never rebuilds
 // hulls (incremental EPA), so hull construction is a host-side
 // preprocessing capability: point cloud -> extreme vertices + triangle
 // faces, used to build padded vertex buffers and fixtures.  This is the
-// framework's native (C++) component; gjkepa_tpu.utils.hull wraps it via
+// framework's native (C++) component; gjkepa.utils.hull wraps it via
 // ctypes with a scipy fallback.
 //
 // Algorithm: classic QuickHull with face outside-sets; visibility by full

@@ -12,7 +12,7 @@ rebuild-the-hull-each-iteration EPA — with ``scipy.spatial.ConvexHull``
 (SURVEY.md §2.3).
 
 This module is TEST INFRASTRUCTURE ONLY: the production engine in
-``gjkepa_tpu/`` shares no code with it and uses different mechanisms
+``gjkepa/`` shares no code with it and uses different mechanisms
 (masked array programs, incremental EPA).
 
 Where the reference halts interactively (WRITE + PAUSE/STOP on impossible
@@ -26,7 +26,7 @@ import dataclasses
 
 import numpy as np
 
-from gjkepa_tpu.ops.directions import DIRECTION_TABLE
+from gjkepa.ops.directions import DIRECTION_TABLE
 
 try:
     from scipy.spatial import ConvexHull
@@ -242,7 +242,7 @@ def gjkepa_oracle(p1, p2, version=2, tol_ff=1.0):
     vo = O - s3
     if abs(np.dot(vo, d)) < 1e-8 and is_inside_pf(np.stack([s1, s2, s3]), O):
         # Reference UB: stale 4th vertex (:143-145).  Convention shared with
-        # the TPU engine: fresh support along the (unflipped) tri normal,
+        # the engine: fresh support along the (unflipped) tri normal,
         # opposite side if coplanar.
         s4e = support_mapping(p1, p2, d)
         tri = np.stack([s1, s2, s3])
@@ -465,3 +465,44 @@ def _collision_point_03(p1, p2, nml):
     new_nml[2] = 0.0
     new_nml = new_nml / np.linalg.norm(new_nml)
     return point, new_nml
+
+
+# ---------------------------------------------------------------------------
+# exact geometry, independent of the reference's control flow
+# ---------------------------------------------------------------------------
+
+def _segment_distances(a, b):
+    """Distance from the origin to each segment [a_k, b_k] (rows)."""
+    e = b - a
+    t = np.clip(-np.einsum("ij,ij->i", a, e)
+                / np.maximum(np.einsum("ij,ij->i", e, e), 1e-300), 0.0, 1.0)
+    return np.linalg.norm(a + t[:, None] * e, axis=1)
+
+
+def signed_distance_oracle(p1, p2):
+    """Signed separation of two convex vertex clouds from the hull of their
+    Minkowski difference {a_i - b_j}: the Euclidean distance from the
+    origin to the hull when the clouds are apart (> 0), minus the
+    penetration depth when they overlap (< 0, the smallest face-plane
+    clearance of the interior origin).  Float64, qhull plus closed-form
+    point-triangle distances; shares no code with the engine or with the
+    transliterated oracle above."""
+    diff = (np.asarray(p1, np.float64)[:, None, :]
+            - np.asarray(p2, np.float64)[None, :, :]).reshape(-1, 3)
+    hull = ConvexHull(diff)
+    offsets = hull.equations[:, 3]             # n.x + offset <= 0 inside
+    if np.all(offsets <= 0.0):
+        return float(np.max(offsets))          # -(min clearance)
+    tri = diff[hull.simplices]                 # (F, 3, 3)
+    a, b, c = tri[:, 0], tri[:, 1], tri[:, 2]
+    n = np.cross(b - a, c - a)
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    foot = np.einsum("ij,ij->i", a, n)[:, None] * n   # origin's projection
+    inside = np.ones(len(tri), bool)
+    for u, v in ((a, b), (b, c), (c, a)):      # same side of every edge
+        inside &= np.einsum("ij,ij->i", np.cross(v - u, foot - u), n) >= 0.0
+    plane = np.where(inside, np.abs(np.einsum("ij,ij->i", a, n)), np.inf)
+    edges = np.minimum.reduce([_segment_distances(a, b),
+                               _segment_distances(b, c),
+                               _segment_distances(c, a)])
+    return float(np.min(np.minimum(plane, edges)))

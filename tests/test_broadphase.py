@@ -1,10 +1,10 @@
 """Broadphase: sweep-and-prune candidate pairs vs the O(n^2) oracle,
-and the overflow-accounting contract (VERDICT round-2 items 5 + weak 3)."""
+and the overflow-accounting contract."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from gjkepa_tpu.ops.broadphase import (grid_candidate_pairs,
+from gjkepa.ops.broadphase import (grid_candidate_pairs,
                                        swept_candidate_pairs)
 
 
@@ -79,7 +79,7 @@ def test_swept_row_overflow_reported(rng):
 
 def test_sim_step_surfaces_overflow():
     """sim_step diagnostics expose the broadphase overflow flag."""
-    from gjkepa_tpu.sim.rigid import SimConfig, init_boxes, sim_step
+    from gjkepa.sim.rigid import SimConfig, init_boxes, sim_step
 
     state = init_boxes(32, height=2.0, spread=6.0)
     _, diag = sim_step(state, SimConfig(max_pairs=512))

@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gjkepa_tpu import GJKEPAConfig
-from gjkepa_tpu.api import derive_contact
-from gjkepa_tpu.ops.contact_rows import derive_contact_rows
+from gjkepa import GJKEPAConfig
+from gjkepa.api import derive_contact
+from gjkepa.ops.contact_rows import derive_contact_rows
 from tests.conftest import cube, random_hull
 
 

@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gjkepa_tpu import GJKEPAConfig, collide_shapes_batch, gjkepa_batch
-from gjkepa_tpu.models import boxes
+from gjkepa import GJKEPAConfig, collide_shapes_batch, gjkepa_batch
+from gjkepa.models import boxes
 
 
 def _corner_cloud(half, pos):
@@ -108,7 +108,7 @@ def test_sphere_pair_contact_contract():
     """Sphere-sphere: type 1, nearest points on each surface, contact point
     between them."""
     cfg = GJKEPAConfig.for_f32()
-    from gjkepa_tpu.models import spheres
+    from gjkepa.models import spheres
 
     a = spheres(jnp.asarray([1.0], jnp.float32),
                 pos=jnp.asarray([[0.0, 0.0, 0.0]], jnp.float32))
@@ -124,12 +124,11 @@ def test_sphere_pair_contact_contract():
                                [0.7, 0, 0], atol=1e-5)
 
 
-def test_fused_contact_matches_xla_path(rng):
-    """collide_shapes_batch_fused (split-pipeline kernels + shapes case
-    trees, interpret mode) agrees with the XLA path on the full contact
-    surface for mixed closed-form pairs."""
-    from gjkepa_tpu import collide_shapes_batch_fused
-    from gjkepa_tpu.models import concat_shapes, spheres
+def test_f32_contact_matches_f64(rng):
+    """In float32, the precision the GPU runs, collide_shapes_batch agrees
+    with its float64 answer on the full contact surface for mixed
+    closed-form pairs."""
+    from gjkepa.models import concat_shapes, spheres
 
     cfg = GJKEPAConfig.for_f32()
     n = 16
@@ -138,8 +137,11 @@ def test_fused_contact_matches_xla_path(rng):
     hb = jnp.asarray((0.3 + 0.3 * rng.random((n, 3))).astype(np.float32))
     a = concat_shapes(spheres(radii, pos=pos), boxes(hb, pos=-pos))
     b = concat_shapes(spheres(radii[::-1], pos=-pos), boxes(hb, pos=pos))
-    rf = collide_shapes_batch_fused(a, b, cfg=cfg, block=32, interpret=True)
-    rx = collide_shapes_batch(a, b, cfg=cfg)
+    a64, b64 = (type(s)(kind=s.kind, params=s.params.astype(jnp.float64),
+                        pos=s.pos.astype(jnp.float64),
+                        rot=s.rot.astype(jnp.float64)) for s in (a, b))
+    rf = collide_shapes_batch(a, b, cfg=cfg)
+    rx = collide_shapes_batch(a64, b64, cfg=GJKEPAConfig())
     hit_f = np.asarray(rf.hit)
     np.testing.assert_array_equal(hit_f, np.asarray(rx.hit))
     both = hit_f

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gjkepa_tpu import GJKEPAConfig, gjkepa_batch
-from gjkepa_tpu.debug import checked_gjkepa_batch
+from gjkepa import GJKEPAConfig, gjkepa_batch
+from gjkepa.debug import checked_gjkepa_batch
 from tests.conftest import cube, random_hull
 
 
@@ -44,58 +44,10 @@ def test_inf_input_raises():
         checked_gjkepa_batch(p1, p2, cfg=GJKEPAConfig())
 
 
-# ---------------------------------------------------------------------------
-# Production-path sanitizers (round-5: the fused Pallas pipelines and the
-# manifold ops get the same checked tier as the portable XLA path).
-# All run in interpret mode on the CPU tier via the f32 config.
-# ---------------------------------------------------------------------------
-
-
-def _f32_batch(rng, b=8):
-    p1, p2 = _batch(rng, b)
-    return p1.astype(jnp.float32), p2.astype(jnp.float32)
-
-
-@pytest.mark.slow
-def test_checked_fused_hulls_clean_and_poisoned(rng):
-    from gjkepa_tpu.debug import DebugCheckError, checked_fused_gjkepa_hulls
-
-    p1, p2 = _f32_batch(rng)
-    cfg = GJKEPAConfig.for_f32()
-    r = checked_fused_gjkepa_hulls(p1, p2, cfg=cfg, block=8,
-                                   interpret=True)  # must not raise
-    assert r.hit.shape == (8,)
-    p1_bad = p1.at[5, 3, 0].set(jnp.nan)
-    with pytest.raises(DebugCheckError, match="non-finite input"):
-        checked_fused_gjkepa_hulls(p1_bad, p2, cfg=cfg, block=8,
-                                   interpret=True)
-
-
-@pytest.mark.slow
-def test_checked_fused_shapes_clean_and_poisoned(rng):
-    from gjkepa_tpu.debug import DebugCheckError, checked_fused_gjkepa_shapes
-    from gjkepa_tpu.models import concat_shapes, spheres
-
-    cfg = GJKEPAConfig.for_f32()
-    n = 8
-    pos = jnp.asarray(rng.normal(size=(n, 3)).astype(np.float32))
-    radii = jnp.asarray((0.4 + 0.4 * rng.random(n)).astype(np.float32))
-    a = spheres(radii, pos=pos)
-    b = spheres(radii, pos=-pos)
-    r = checked_fused_gjkepa_shapes(a, b, cfg=cfg, block=8,
-                                    interpret=True)   # must not raise
-    assert r.hit.shape == (n,)
-    bad = type(a)(kind=a.kind, params=a.params.at[2, 0].set(jnp.inf),
-                  pos=a.pos, rot=a.rot)
-    with pytest.raises(DebugCheckError, match="non-finite shape parameter"):
-        checked_fused_gjkepa_shapes(bad, b, cfg=cfg, block=8,
-                                    interpret=True)
-
-
 @pytest.mark.slow
 def test_checked_manifold_clean_and_poisoned(rng):
-    from gjkepa_tpu import gjkepa_batch
-    from gjkepa_tpu.debug import DebugCheckError, checked_manifold_batch
+    from gjkepa import gjkepa_batch
+    from gjkepa.debug import DebugCheckError, checked_manifold_batch
 
     cfg = GJKEPAConfig()
     # overlapping cubes: face-face manifolds
@@ -117,7 +69,7 @@ def test_checked_manifold_slab_violation():
     degenerate fallback, whose single manifold point is the caller's
     contact_point verbatim — a poisoned contact point far outside the
     support slab must trip the contact-plane check."""
-    from gjkepa_tpu.debug import DebugCheckError, checked_manifold_batch
+    from gjkepa.debug import DebugCheckError, checked_manifold_batch
 
     cfg = GJKEPAConfig()
     # tetra A apex at +x, tetra B apex at -x, apexes interpenetrating 0.1
@@ -139,10 +91,10 @@ def test_checked_manifold_slab_violation():
 
 @pytest.mark.slow
 def test_checked_manifold_shapes_clean_and_poisoned(rng):
-    from gjkepa_tpu import collide_shapes_batch
-    from gjkepa_tpu.debug import (DebugCheckError,
+    from gjkepa import collide_shapes_batch
+    from gjkepa.debug import (DebugCheckError,
                                   checked_manifold_shapes_batch)
-    from gjkepa_tpu.models import boxes
+    from gjkepa.models import boxes
 
     cfg = GJKEPAConfig.for_f32()
     h = jnp.asarray(np.full((4, 3), 0.5, np.float32))

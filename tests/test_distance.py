@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gjkepa_tpu import gjkepa_batch
-from gjkepa_tpu.api import gjk_distance_batch
+from gjkepa import gjkepa_batch
+from gjkepa.api import gjk_distance_batch
 from tests.conftest import cube, random_hull
 
 
@@ -84,9 +84,9 @@ def test_distance_shapes_batch():
     import numpy as np
     import jax.numpy as jnp
 
-    from gjkepa_tpu import GJKEPAConfig
-    from gjkepa_tpu.api import gjk_distance_shapes_batch
-    from gjkepa_tpu.models import spheres
+    from gjkepa import GJKEPAConfig
+    from gjkepa.api import gjk_distance_shapes_batch
+    from gjkepa.models import spheres
 
     a = spheres(jnp.asarray(np.array([1.0, 1.0], np.float32)),
                 pos=jnp.asarray(np.zeros((2, 3), np.float32)))

@@ -1,4 +1,4 @@
-"""Scale-awareness of the f32 tolerance ladder (VERDICT round-2 item 9).
+"""Scale-awareness of the f32 tolerance ladder.
 
 The reference's epsilon ladder is absolute (SURVEY.md §2.2); the f32 perf
 mode rescales it, which only works while coordinates stay O(1-100).  These
@@ -12,8 +12,8 @@ import jax.numpy as jnp
 
 import pytest
 
-from gjkepa_tpu import GJKEPAConfig, gjkepa_batch
-from gjkepa_tpu.debug import DebugCheckError, checked_gjkepa_batch
+from gjkepa import GJKEPAConfig, gjkepa_batch
+from gjkepa.debug import DebugCheckError, checked_gjkepa_batch
 from tests.conftest import cube, random_hull
 
 
@@ -87,10 +87,8 @@ def test_identical_geometry_f32_jit_hits():
     init direction whose support coincided with s2 and the query
     misclassified as MISS_INIT (status 1) — under jit only, eager f32 was
     fine.  The init phase now treats sub-eps_coincide rejections as
-    on-line and takes the perpendicular fallback (ops/gjk.py /
-    ops/fused.py v3 step)."""
-    from gjkepa_tpu.ops.fused import fused_gjkepa_hulls
-    from gjkepa_tpu.types import Status
+    on-line and takes the perpendicular fallback (ops/gjk.py)."""
+    from gjkepa.types import Status
 
     c = cube([0.0, 0.0, 0.0]).astype(np.float32)
     for cfg in (GJKEPAConfig(), GJKEPAConfig.for_f32()):
@@ -98,9 +96,9 @@ def test_identical_geometry_f32_jit_hits():
         assert bool(r.hit[0]), int(r.status[0])
         assert int(r.status[0]) == Status.HIT
         assert float(r.depth[0]) == pytest.approx(1.0, abs=1e-5)
-    rf = fused_gjkepa_hulls(jnp.asarray(np.repeat(c[None], 8, 0)),
-                            jnp.asarray(np.repeat(c[None], 8, 0)),
-                            cfg=GJKEPAConfig.for_f32(), block=8,
-                            interpret=True)
-    assert bool(rf.hit[0]) and float(rf.depth[0]) == pytest.approx(1.0,
-                                                                   abs=1e-5)
+    # the same lane inside a wider f32 batch
+    rb = gjkepa_batch(jnp.asarray(np.repeat(c[None], 8, 0)),
+                      jnp.asarray(np.repeat(c[None], 8, 0)),
+                      cfg=GJKEPAConfig.for_f32())
+    assert np.asarray(rb.hit).all()
+    np.testing.assert_allclose(np.asarray(rb.depth), 1.0, atol=1e-5)

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gjkepa_tpu.ops import geom
+from gjkepa.ops import geom
 
 
 def test_cross3_matches_numpy(rng):

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gjkepa_tpu import GJKEPAConfig, Status, gjkepa, gjkepa_batch
+from gjkepa import GJKEPAConfig, Status, gjkepa, gjkepa_batch
 from tests.conftest import cube, random_hull
 
 CFG = GJKEPAConfig()

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from gjkepa_tpu.utils import hull as H
+from gjkepa.utils import hull as H
 
 pytestmark = pytest.mark.skipif(
     not H.native_available() and pytest.importorskip("scipy") is None,

@@ -1,30 +1,21 @@
-"""Large-hull scaling (SURVEY.md §5.7, VERDICT round-1 item 10).
+"""Large-hull scaling (SURVEY.md §5.7).
 
 The reference takes arbitrary N1/N2 per call (`/root/reference/src/
 GCLIB_GJKEPA.f90:43-46`); its support scan is a sequential O(N) loop
-(:1040-1057).  The fused kernels hold both (3, N, block) hull buffers
-resident in VMEM, so large N must shrink the lane block instead of blowing
-VMEM: `_auto_block` caps block so the inputs fit a 6 MB budget
-(N=64 -> block 512 unchanged; N=1024 -> block 256).
-
-These tests pin (a) the auto-block policy, (b) fused-vs-XLA agreement at
-N=1024 through the full pipeline, and (c) mask support at large N.
+(:1040-1057).  Here the support is a masked argmax over the padded vertex
+buffer, so large hulls need no special path.  These tests pin float32
+agreement with float64 up to n1 + n2 = 8192 vertices per pair, first-max
+tie-breaking under row repetition, and mask support at large N.
 """
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from gjkepa_tpu import GJKEPAConfig, gjkepa_batch
-from gjkepa_tpu.ops.fused import _auto_block, fused_gjkepa_hulls
+from gjkepa import GJKEPAConfig, gjkepa_batch
 
 F32 = GJKEPAConfig.for_f32()
-
-
-def test_auto_block_policy():
-    assert _auto_block(512, 64, 64) == 512          # small hulls: unchanged
-    assert _auto_block(512, 1024, 1024) == 256      # 24 KB/lane -> 256 lanes
-    assert _auto_block(512, 4096, 4096) == 128      # floor at one lane tile
-    assert _auto_block(128, 1024, 1024) == 128      # never grows the block
+F64 = GJKEPAConfig()
 
 
 def _big_hulls(rng, b, n, radius=1.0, spread=0.5):
@@ -35,21 +26,51 @@ def _big_hulls(rng, b, n, radius=1.0, spread=0.5):
     return v.astype(np.float32)
 
 
-def test_n1024_fused_matches_xla():
-    """Full fused pipeline at N=1024 vertices/hull: hit/depth/normal agree
-    with the portable XLA path (same f32 config) — no VMEM blowup, no
-    accuracy cliff at the auto-reduced block."""
+def _f32_vs_f64(p1, p2):
+    r32 = gjkepa_batch(jnp.asarray(p1), jnp.asarray(p2), cfg=F32)
+    r64 = gjkepa_batch(jnp.asarray(p1, jnp.float64),
+                       jnp.asarray(p2, jnp.float64), cfg=F64)
+    hit = np.asarray(r64.hit)
+    np.testing.assert_array_equal(np.asarray(r32.hit), hit)
+    assert hit.any()
+    np.testing.assert_allclose(np.asarray(r32.depth)[hit],
+                               np.asarray(r64.depth)[hit], atol=5e-5)
+
+
+def test_n1024_f32_matches_f64():
+    """Full pipeline at N=1024 vertices/hull: hit/depth agree with the
+    float64 path — no accuracy cliff at large N."""
     rng = np.random.default_rng(11)
-    b = 8
-    p1 = jnp.asarray(_big_hulls(rng, b, 1024))
-    p2 = jnp.asarray(_big_hulls(rng, b, 1024))
-    rf = fused_gjkepa_hulls(p1, p2, cfg=F32, block=512, interpret=True)
-    rx = gjkepa_batch(p1, p2, cfg=F32)
-    np.testing.assert_array_equal(np.asarray(rf.hit), np.asarray(rx.hit))
-    hit = np.asarray(rx.hit)
-    if hit.any():
-        df, dx = np.asarray(rf.depth)[hit], np.asarray(rx.depth)[hit]
-        np.testing.assert_allclose(df, dx, atol=5e-5)
+    _f32_vs_f64(_big_hulls(rng, 8, 1024), _big_hulls(rng, 8, 1024))
+
+
+@pytest.mark.parametrize("n1,n2", [(2304, 2304), (4096, 64), (4096, 4096)])
+def test_large_n_f32_matches_f64(n1, n2):
+    """n1 + n2 > 4096 at a small batch: the sizes a streamed support
+    would serve, through the one support path."""
+    rng = np.random.default_rng(n1 + n2)
+    _f32_vs_f64(_big_hulls(rng, 4, n1), _big_hulls(rng, 4, n2, radius=0.8))
+
+
+def test_repeated_rows_are_identity():
+    """Padding a hull by repeating its rows changes no GJK/EPA answer: the
+    support argmax keeps the first of equal maxima (the reference's
+    strict-> scan, ref :1040-1046), so those fields are bit-identical.
+    (The contact point is not among them: repeated rows enter the support
+    sets it is built from.)"""
+    rng = np.random.default_rng(5)
+    b, n = 4, 1536
+    p1, p2 = _big_hulls(rng, b, n), _big_hulls(rng, b, n)
+    r = gjkepa_batch(jnp.asarray(p1), jnp.asarray(p2), cfg=F32)
+    rr = gjkepa_batch(jnp.asarray(np.concatenate([p1, p1[:, :1024]], axis=1)),
+                      jnp.asarray(np.concatenate([p2, p2[:, ::2]], axis=1)),
+                      cfg=F32)
+    assert np.asarray(r.hit).any()
+    for name in ("hit", "status", "depth", "normal", "distance",
+                 "gjk_iters", "epa_iters"):
+        np.testing.assert_array_equal(np.asarray(getattr(rr, name)),
+                                      np.asarray(getattr(r, name)),
+                                      err_msg=name)
 
 
 def test_n1024_masked_equals_unpadded():
@@ -65,11 +86,9 @@ def test_n1024_masked_equals_unpadded():
         [p2, np.full((b, n_pad - n_real, 3), -7e3, np.float32)], axis=1)
     m = np.zeros((b, n_pad), bool)
     m[:, :n_real] = True
-    rm = fused_gjkepa_hulls(jnp.asarray(pad1), jnp.asarray(pad2),
-                            mask1=jnp.asarray(m), mask2=jnp.asarray(m),
-                            cfg=F32, interpret=True)
-    ru = fused_gjkepa_hulls(jnp.asarray(p1), jnp.asarray(p2), cfg=F32,
-                            interpret=True)
+    rm = gjkepa_batch(jnp.asarray(pad1), jnp.asarray(pad2),
+                      jnp.asarray(m), jnp.asarray(m), cfg=F32)
+    ru = gjkepa_batch(jnp.asarray(p1), jnp.asarray(p2), cfg=F32)
     np.testing.assert_array_equal(np.asarray(rm.hit), np.asarray(ru.hit))
     np.testing.assert_allclose(np.asarray(rm.depth), np.asarray(ru.depth),
                                atol=1e-6)

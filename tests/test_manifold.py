@@ -1,4 +1,4 @@
-"""Query-level contact manifolds (VERDICT round-2 item 4 / BASELINE cfg 4).
+"""Query-level contact manifolds (bench config c4).
 
 Differential strategy: for box-box fixtures the true contact region is the
 intersection of the two face rectangles in the contact plane — checked by
@@ -11,10 +11,10 @@ single reference contact point (the reference's own output, ref :329-340).
 import numpy as np
 import jax.numpy as jnp
 
-from gjkepa_tpu import GJKEPAConfig
-from gjkepa_tpu.api import collide_shapes_batch, gjkepa_batch
-from gjkepa_tpu.models.shapes import boxes, concat_shapes, spheres
-from gjkepa_tpu.ops.manifold import manifold_batch, manifold_shapes_batch
+from gjkepa import GJKEPAConfig
+from gjkepa.api import collide_shapes_batch, gjkepa_batch
+from gjkepa.models.shapes import boxes, concat_shapes, spheres
+from gjkepa.ops.manifold import manifold_batch, manifold_shapes_batch
 
 CFG = GJKEPAConfig.for_f32()
 
@@ -149,8 +149,8 @@ def test_miss_lanes_have_empty_manifold():
 
 def test_poly_cap_overflow_flagged_and_recoverable():
     """A 12-vertex coplanar contact face must either fit the support
-    polygon capacity or raise the per-pair overflow flag (VERDICT round-3
-    item 6: no silent truncation; ref support sets are unbounded lists,
+    polygon capacity or raise the per-pair overflow flag (no silent
+    truncation; ref support sets are unbounded lists,
     ref :509-529)."""
     # prism: regular 12-gon top face at z = +0.25, same 12-gon at z = -0.25
     ang = np.linspace(0.0, 2 * np.pi, 12, endpoint=False)

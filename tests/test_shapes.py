@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from gjkepa_tpu import collide_shapes_batch
-from gjkepa_tpu.models import (
+from gjkepa import collide_shapes_batch
+from gjkepa.models import (
     ShapeBatch, boxes, capsules, concat_shapes, cylinders, spheres,
 )
-from gjkepa_tpu.ops import support as sup
+from gjkepa.ops import support as sup
 
 
 class TestSupportMaps:
@@ -62,10 +62,8 @@ class TestAnalyticBatch:
                     dtype=jnp.float64)
         r = collide_shapes_batch(a, b)
         np.testing.assert_array_equal(np.asarray(r.hit), [True, True, False])
-        # Smooth shapes are approximated by the EPA polytope (vertex cap 64),
-        # so depth carries a polyhedralization error ~1e-4 * radius.  The
-        # <1e-5 budget applies to vertex hulls, which are exact.  TODO:
-        # closed-form contact for analytic-analytic pairs (sphere-sphere etc).
+        # sphere pairs take the closed form (test_sphere_sphere_exact_depth
+        # pins it to 1e-12); 2e-4 is the polished-EPA bound on smooth shapes
         assert float(r.depth[0]) == pytest.approx(1.5, abs=2e-4)
         assert float(r.depth[1]) == pytest.approx(0.5, abs=2e-4)
         assert float(r.depth[2]) == 0.0
@@ -126,8 +124,8 @@ class TestMixedHullShape:
         """A box as an analytic shape vs as its 8-corner hull must give the
         same hit/depth against a hull opponent."""
         import jax.numpy as jnp
-        from gjkepa_tpu.api import collide_hull_shape_batch
-        from gjkepa_tpu import GJKEPAConfig, gjkepa_batch
+        from gjkepa.api import collide_hull_shape_batch
+        from gjkepa import GJKEPAConfig, gjkepa_batch
 
         cfg = GJKEPAConfig()
         B = 16
@@ -167,79 +165,48 @@ def test_sphere_sphere_exact_depth():
                                [[1, 0, 0], [-0.5, 0, 0]], atol=1e-12)
 
 
-def test_fuzz_mixed_kind_pairs_fused_vs_xla(rng):
+def test_fuzz_mixed_kind_pairs_f32_vs_f64(rng):
     """Multi-seed fuzz over ALL 16 shape-kind pair combinations (the c3
-    bench fixture only exercises same-kind pairs): the fused pipeline
-    (closed-form channel + dual-tier EPA + cascade) must agree with the
-    portable XLA path on hit verdicts and depth for every combination,
-    including rotated capsules/cylinders against boxes."""
-    import numpy as np
-
-    from gjkepa_tpu import GJKEPAConfig
-    from gjkepa_tpu.models.shapes import (boxes, capsules, concat_shapes,
-                                          cylinders, spheres)
-    from gjkepa_tpu.ops.fused import fused_gjkepa_shapes
+    bench fixture only exercises same-kind pairs): the float32 path the GPU
+    runs (closed forms + polished EPA) must agree with the float64 path on
+    hit verdicts and depth for every combination, including rotated
+    capsules/cylinders against boxes."""
+    from gjkepa import GJKEPAConfig
+    from gjkepa.ops.closed_forms import closed_form_shape_pairs
 
     cfg = GJKEPAConfig.for_f32()
 
-    def rots(k, r):
-        ms = []
-        for _ in range(k):
-            q = np.linalg.qr(r.normal(size=(3, 3)))[0]
-            if np.linalg.det(q) < 0:
-                q[:, 0] *= -1
-            ms.append(q)
-        return jnp.asarray(np.stack(ms), jnp.float32)
-
-    def batch_of_kind(kind, n, r):
-        pos = jnp.asarray(r.normal(size=(n, 3)).astype(np.float32) * 0.9)
-        rr = rots(n, r)
-        p0 = jnp.asarray((0.3 + 0.4 * r.random(n)).astype(np.float32))
-        p1 = jnp.asarray((0.2 + 0.4 * r.random(n)).astype(np.float32))
-        if kind == 0:
-            return spheres(p0, pos=pos)
-        if kind == 1:
-            return boxes(jnp.stack([p0, p1, p0], 1), pos=pos, rot=rr)
-        if kind == 2:
-            return capsules(p0, p1, pos=pos, rot=rr)
-        return cylinders(p0, p1, pos=pos, rot=rr)
+    def as64(s):
+        return type(s)(kind=s.kind, params=s.params.astype(jnp.float64),
+                       pos=s.pos.astype(jnp.float64),
+                       rot=s.rot.astype(jnp.float64))
 
     for seed in (11, 23):
-        r = np.random.default_rng(seed)
-        n = 8  # per kind-pair combination
-        a = concat_shapes(*[batch_of_kind(ka, n, r)
-                            for ka in range(4) for _ in range(4)])
-        b = concat_shapes(*[batch_of_kind(kb, n, r)
-                            for _ in range(4) for kb in range(4)])
-        rf = fused_gjkepa_shapes(a, b, cfg=cfg, interpret=True)
-        from gjkepa_tpu.api import collide_shapes_batch
-        rx = collide_shapes_batch(a, b, cfg=cfg)
-        hit_f = np.asarray(rf.hit)
-        hit_x = np.asarray(rx.hit)
+        a, b = _mixed_16combo_pair(8, seed)
+        r32 = collide_shapes_batch(a, b, cfg=cfg)
+        r64 = collide_shapes_batch(as64(a), as64(b), cfg=GJKEPAConfig())
+        hit32 = np.asarray(r32.hit)
+        hit64 = np.asarray(r64.hit)
         np.testing.assert_array_equal(
-            hit_f, hit_x, err_msg=f"seed {seed}: hit verdicts diverge")
-        both = hit_f & (np.asarray(rf.status) == 3) & (np.asarray(rx.status) == 3)
-        df, dx = np.asarray(rf.depth), np.asarray(rx.depth)
-        from gjkepa_tpu.ops.fused import _closed_form_shape_pairs
-        handled = np.asarray(_closed_form_shape_pairs(
+            hit32, hit64, err_msg=f"seed {seed}: hit verdicts diverge")
+        both = hit32 & (np.asarray(r32.status) == 3) \
+            & (np.asarray(r64.status) == 3)
+        d32, d64 = np.asarray(r32.depth), np.asarray(r64.depth)
+        handled = np.asarray(closed_form_shape_pairs(
             a, b, cfg.broadphase_tol)[0])
-        # closed-form lanes: exact on the fused side; the XLA side is
-        # converged polytopal EPA + the support-descent polish, whose
-        # result is an UPPER bound realized along its direction — on flat
-        # (edge/face) contacts the final grid step (~6e-4 rad) leaves up
-        # to ~5e-4 of linear-in-angle slack above the exact depth
+        # closed-form lanes: exact on both sides, so only f32 rounding
         m0 = both & handled
         np.testing.assert_allclose(
-            df[m0], dx[m0], atol=5e-4,
+            d32[m0], d64[m0], atol=2e-5,
             err_msg=f"seed {seed}: depth diverges on closed-form lanes")
         # remaining lanes (box-capsule / box-cyl / cap-cyl / cyl-cyl) run
-        # capped-EPA+polish on the fused side (pinned to sampled ground
-        # truth within 5e-4 by tests/test_closed_forms.py); the portable
-        # XLA EPA terminates on f32 duplicate supports with up to ~2e-3
-        # depth error on smooth surfaces — this bound is XLA's error
+        # EPA + the support-descent polish, an upper bound realized along
+        # its direction; f32 EPA terminates on duplicate supports with up
+        # to ~2e-3 depth error on smooth surfaces
         m1 = both & ~handled
+        assert m1.any()
         np.testing.assert_allclose(
-            df[m1], dx[m1], atol=5e-3,
+            d32[m1], d64[m1], atol=5e-3,
             err_msg=f"seed {seed}: depth diverges on polished EPA lanes")
 
 
@@ -276,79 +243,10 @@ def _mixed_16combo_pair(n_per_combo, seed):
     return a, b
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("case", ["mixed512", "dense_g0_fallback", "padded400"])
-def test_split_pipeline_fast_vs_legacy_bit_identical(case):
-    """CPU-tier correctness gate for the production split-pipeline dispatch
-    of fused_gjkepa_shapes (the flagship c3 path).
-
-    The `fast` branch (closed-form kernel in caller order + compact-subset
-    GJK + hit-compacted EPA cascade + the dest1/dest2 double permutation,
-    ops/fused.py:2333) only activates at batch >= 4 blocks; every other
-    CPU-tier test uses <= 128 pairs and therefore takes the small-batch
-    legacy path.  This test drives the fast branch in interpret mode
-    against the unsorted legacy single-kernel path (sort_hits=False),
-    requiring the discrete fields (hit / status / iteration counters)
-    BIT-IDENTICAL and the continuous fields (depth / normal / distance)
-    within 1 ulp on at most 0.5% of lanes.  Full bitwise equality of the
-    continuous fields is not a stable property: a closed-form lane's
-    values come from _cf_kernel_shapes on the fast branch but from
-    _gjk_kernel_shapes on the legacy branch — two separately compiled
-    kernels whose FMA-contraction choices the compiler may legitimately
-    make differently (observed: one capsule-capsule lane's normal.y off
-    by exactly 1 ulp, flipping with unrelated graph edits).  Cases:
-
-      * mixed512 — all 16 kind combinations, 512 pairs = 4 blocks; the
-        g0 (GJK-lane) population is a minority, so the fast branch runs;
-      * dense_g0_fallback — 512 overlapping cylinder-cylinder pairs: no
-        closed form, every lane g0, so n_g0 > C1 forces the scalar
-        lax.cond fallback to the grouped legacy path (ops/fused.py:2460)
-        WITH the caller-order restoring pre_dest permutation;
-      * padded400 — 400 pairs (not a multiple of the 128 block): the
-        pad-and-slice wrapper around both branches.
-    """
-    from gjkepa_tpu import GJKEPAConfig
-    from gjkepa_tpu.ops.fused import fused_gjkepa_shapes
-
-    cfg = GJKEPAConfig.for_f32()
-    if case == "mixed512":
-        a, b = _mixed_16combo_pair(32, 7)
-    elif case == "dense_g0_fallback":
-        r = np.random.default_rng(3)
-        a = _batch_of_kind(3, 512, r, spread=0.2)
-        b = _batch_of_kind(3, 512, r, spread=0.2)
-    else:
-        a, b = _mixed_16combo_pair(25, 9)
-
-    rf = fused_gjkepa_shapes(a, b, cfg=cfg, interpret=True, sort_hits=True)
-    rl = fused_gjkepa_shapes(a, b, cfg=cfg, interpret=True, sort_hits=False)
-    assert rf.hit.shape[0] == a.kind.shape[0]
-    for name in ("hit", "status", "gjk_iters", "epa_iters"):
-        x, y = np.asarray(getattr(rf, name)), np.asarray(getattr(rl, name))
-        np.testing.assert_array_equal(
-            x, y, err_msg=f"{case}: field {name} diverges fast vs legacy")
-    for name in ("depth", "normal", "distance"):
-        x, y = np.asarray(getattr(rf, name)), np.asarray(getattr(rl, name))
-        np.testing.assert_allclose(
-            x, y, atol=5e-7, rtol=5e-7,
-            err_msg=f"{case}: field {name} diverges fast vs legacy")
-        frac = float((x != y).mean())
-        assert frac < 0.005, \
-            f"{case}: {name} bit-differs on {frac:.1%} of lanes (> 0.5%)"
-    if case == "dense_g0_fallback":
-        # the fixture must actually force the fallback: every lane is a
-        # cylinder pair (no closed form) within broadphase range
-        assert int(np.asarray(rf.hit).sum()) > 256
-
-
-def test_fused_shapes_order_invariance(rng):
-    """The GJK-lane grouping must make results (and, on hardware,
-    throughput) independent of the caller's pair order: a shuffled batch
-    must return exactly the shuffled results of the natural batch."""
-    from gjkepa_tpu import GJKEPAConfig
-    from gjkepa_tpu.models.shapes import (boxes, capsules, concat_shapes,
-                                          cylinders, spheres)
-    from gjkepa_tpu.ops.fused import fused_gjkepa_shapes
+def test_shapes_order_invariance(rng):
+    """Lanes are independent: a shuffled batch must return exactly the
+    shuffled results of the natural batch."""
+    from gjkepa import GJKEPAConfig
 
     cfg = GJKEPAConfig.for_f32()
     q = 32
@@ -367,12 +265,11 @@ def test_fused_shapes_order_invariance(rng):
                   pos=pos()),
     )
     a, b = mk(), mk()
-    base = fused_gjkepa_shapes(a, b, cfg=cfg, block=128, interpret=True)
+    base = collide_shapes_batch(a, b, cfg=cfg)
     perm = rng.permutation(4 * q)
     sh = lambda s: type(s)(kind=s.kind[perm], params=s.params[perm],  # noqa
                            pos=s.pos[perm], rot=s.rot[perm])
-    shuf = fused_gjkepa_shapes(sh(a), sh(b), cfg=cfg, block=128,
-                               interpret=True)
+    shuf = collide_shapes_batch(sh(a), sh(b), cfg=cfg)
     for field in base._fields:
         np.testing.assert_array_equal(np.asarray(getattr(base, field))[perm],
                                       np.asarray(getattr(shuf, field)),
@@ -382,7 +279,7 @@ def test_fused_shapes_order_invariance(rng):
 def _np_shape_support(kind, params, pos, rot, d):
     """Vectorized numpy support of one shape batch: (D, 3) dirs x (n,)
     shapes -> (D, n, 3) world support points.  Independent re-derivation of
-    the kernel's closed-form supports (box/capsule/cylinder) used as the
+    the engine's closed-form supports (box/capsule/cylinder) used as the
     audit oracle."""
     dl = np.einsum("nij,di->dnj", np.asarray(rot), d)          # R^T d
     p = np.asarray(params)
@@ -415,9 +312,9 @@ def test_verdict_audit_vs_separating_axis(rng, ka, kb):
     form (the GJK/EPA path): a pair is disjoint iff some unit direction d
     has positive Minkowski support h(d) = <s_A(d)-s_B(-d), d>.  Dense
     direction sampling (2048 dirs) gives a one-sided certificate each way:
-    min_d h(d) < -tol proves separation (a fused hit there is a FALSE hit
-    — this caught the center-to-center init experiment producing ~800
-    false touching-contact hits per 64k, docs/DESIGN.md round-3 lesson 9);
+    min_d h(d) < -tol proves separation (a hit there is a FALSE hit —
+    this caught a center-to-center GJK init producing ~800 false
+    touching-contact hits per 64k);
     min_d h(d) > margin over all samples makes a miss suspect — the
     margin must account for sampling density: for nearly-touching convex
     bodies the separating cone is arbitrarily narrow, so h can dip below
@@ -425,10 +322,7 @@ def test_verdict_audit_vs_separating_axis(rng, ka, kb):
     (~4 degrees apart) and objects of scale ~1 the sound margin is ~0.15
     (a first version used 1e-4 and flagged a correctly-separated
     box-capsule pair with a 0.02 gap as a "missed hit")."""
-    from gjkepa_tpu import GJKEPAConfig
-    from gjkepa_tpu.models.shapes import boxes, capsules, cylinders
-    from gjkepa_tpu.ops.fused import fused_gjkepa_shapes
-
+    from gjkepa import GJKEPAConfig
     cfg = GJKEPAConfig.for_f32()
     n = 64
 
@@ -449,7 +343,7 @@ def test_verdict_audit_vs_separating_axis(rng, ka, kb):
             pos=pos)
 
     a, b = mk(ka), mk(kb)
-    r = fused_gjkepa_shapes(a, b, cfg=cfg, block=64, interpret=True)
+    r = collide_shapes_batch(a, b, cfg=cfg)
 
     dirs = rng.normal(size=(2048, 3)).astype(np.float32)
     dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)

@@ -4,8 +4,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from gjkepa_tpu import GJKEPAConfig, gjkepa_batch
-from gjkepa_tpu.parallel import (
+from gjkepa import GJKEPAConfig, gjkepa_batch
+from gjkepa.parallel import (
     contact_count_sharded, gjkepa_batch_sharded, pair_mesh, shard_pairs,
 )
 from tests.conftest import cube
@@ -57,12 +57,9 @@ def test_submesh(rng):
     np.testing.assert_array_equal(np.asarray(rs.hit), np.asarray(ru.hit))
 
 
-def test_fused_sharded_matches_unsharded(rng):
-    """The fused Pallas cascade under shard_map (interpret mode on the
-    8-virtual-device CPU mesh) equals the unsharded fused result."""
-    from gjkepa_tpu.api import gjkepa_batch_fused
-    from gjkepa_tpu.parallel import gjkepa_batch_fused_sharded, pair_mesh, shard_pairs
-
+def test_sharded_f32_matches_unsharded(rng):
+    """The float32 query under shard_map on the 8-virtual-device CPU mesh
+    equals the unsharded float32 result."""
     cfg = GJKEPAConfig.for_f32()
     b, n = 64, 8
     v = rng.normal(size=(b, n, 3))
@@ -74,8 +71,8 @@ def test_fused_sharded_matches_unsharded(rng):
 
     mesh = pair_mesh(8)
     p1s, p2s = shard_pairs(mesh, p1, p2)
-    rs = gjkepa_batch_fused_sharded(mesh, p1s, p2s, cfg=cfg, interpret=True)
-    ru = gjkepa_batch_fused(p1, p2, cfg=cfg, interpret=True)
+    rs = gjkepa_batch_sharded(mesh, p1s, p2s, cfg=cfg)
+    ru = gjkepa_batch(p1, p2, cfg=cfg)
     np.testing.assert_array_equal(np.asarray(rs.hit), np.asarray(ru.hit))
     m = np.asarray(ru.hit)
     assert m.sum() > 3
